@@ -8,18 +8,19 @@ Functional port of the reference app (ref: icon_rt/hostCode.cu:703-968):
 
 Extensions over the reference CLI:
   --synthetic SUBDIV[:LAYERS]  render a generated icosphere field (no .ic)
-  --raygen {fast,accel,ae}     fast = TPU-native radial-band raygen (ours);
+  --raygen {fast,accel,ae}     fast = radial-band Woodcock raygen (ours);
                                accel/ae = reference-parity raygens
   --accel-mode {sphere,grid}   parity accel selection (reference UI combo)
   --sampler {locator,brute,wedge}  point-sampler (reference 'Sampler mode')
   -o PATH                      output PNG name (default icon_rt.png)
+  --quantized / --march / --samples N / --preview N / --no-finemap
+                               fast-raygen tiers and options (see below)
 
 Batch behavior matches the reference: renders --sample-limit progressive
 frames, writes the PNG, prints FPS.
 """
 import os
 import sys
-import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
@@ -95,13 +96,8 @@ def parse_app_args(argv):
             # progressive samples accumulated per launch on the fast
             # raygens (in-lane batching, ops/fast.py `samples=`): restarts
             # ride the column cache, so S=8 renders several-fold faster
-            # per sample than 8 separate launches.  "auto" probes the
-            # first warm frame and sizes the launch to the execution
-            # budget (utils/autosize.py — keeps slow-per-ray scenes off
-            # the ~60 s worker execution ceiling, VERDICT r4 next #7)
-            v = argv[i + 1]
-            cfg["samples"] = "auto" if v == "auto" else max(1, int(v))
-            i += 1
+            # per sample than 8 separate launches
+            cfg["samples"] = max(1, int(argv[i + 1])); i += 1
         i += 1
     return cfg
 
@@ -129,24 +125,24 @@ def build(argv):
     mode toggles (ref: hostCode.cu:843-857) programmatically."""
     cfg = parse_app_args(argv)
 
-    from icon_rt_tpu.utils.cache import enable_compilation_cache
+    from icon_dvr.utils.cache import enable_compilation_cache
     enable_compilation_cache()
 
     import jax.numpy as jnp
-    from icon_rt_tpu.data import icfile, synthetic
-    from icon_rt_tpu.models.accel import (build_grid_accel, build_shell_accel,
-                                          update_majorants)
-    from icon_rt_tpu.models.cells import build_cells, compute_stats
-    from icon_rt_tpu.models.locator import build_locator
-    from icon_rt_tpu.models.shells import build_radial_bands, update_band_majorants
-    from icon_rt_tpu.models.transfunc import DEFAULT_COLORS
-    from icon_rt_tpu.models.wedges import build_wedges
-    from icon_rt_tpu.ops.camera import Camera
-    from icon_rt_tpu.ops.fast import pack_cells, render_frame_fast
-    from icon_rt_tpu.ops.order import inverse_order, pixel_order
-    from icon_rt_tpu.ops.render import (alloc_frame, make_launch_params,
-                                        render_frame_accel, render_frame_ae)
-    from icon_rt_tpu.pipeline.pipeline import Pipeline, TransfuncState
+    from icon_dvr.data import icfile, synthetic
+    from icon_dvr.models.accel import (build_grid_accel, build_shell_accel,
+                                       update_majorants)
+    from icon_dvr.models.cells import build_cells, compute_stats
+    from icon_dvr.models.locator import build_locator
+    from icon_dvr.models.shells import build_radial_bands, update_band_majorants
+    from icon_dvr.models.transfunc import DEFAULT_COLORS
+    from icon_dvr.models.wedges import build_wedges
+    from icon_dvr.ops.camera import Camera
+    from icon_dvr.ops.fast import pack_cells, render_frame_fast
+    from icon_dvr.ops.order import inverse_order, pixel_order
+    from icon_dvr.ops.render import (alloc_frame, make_launch_params,
+                                     render_frame_accel, render_frame_ae)
+    from icon_dvr.pipeline.pipeline import Pipeline, TransfuncState
 
     # -- dataset (ref: hostCode.cu:717-808) ---------------------------------
     if cfg["synthetic"] is not None:
@@ -211,7 +207,7 @@ def build(argv):
     # live mode toggles (ref: hostCode.cu:138-199 toggleRayGen/Mode/
     # AccelMode + UI at :843-857): render() reads `state` every frame, so
     # set_ui_param mid-run swaps the path AND resets accumulation.  The
-    # fast raygen is our TPU-native extension; its sampler is the analytic
+    # fast raygen is our own extension; its sampler is the analytic
     # column cache and its accel the radial bands, so "Sampler mode" /
     # "Accel mode" apply to the two reference-parity raygens (accel, ae).
     pl.ui_param("Raygen", lambda: state["raygen"],
@@ -262,7 +258,7 @@ def build(argv):
         return struct["packed"]
 
     def get_bands_wedge():
-        from icon_rt_tpu.models.shells import build_radial_bands_wedge
+        from icon_dvr.models.shells import build_radial_bands_wedge
         if struct.get("bands_w") is None:
             struct["bands_w"] = update_band_majorants(
                 build_radial_bands_wedge(ds, cfg["bands"]),
@@ -270,7 +266,7 @@ def build(argv):
         return struct["bands_w"]
 
     def get_packed_wedge():
-        from icon_rt_tpu.ops.fast import pack_cells_wedge
+        from icon_dvr.ops.fast import pack_cells_wedge
         if struct.get("packed_w") is None:
             struct["packed_w"] = pack_cells_wedge(cells, device["tf"])
         return struct["packed_w"]
@@ -279,18 +275,17 @@ def build(argv):
         """Quantized tier (--quantized): cells + dense locator; TF edits
         re-bake only the u8 alpha channel (models/qcells.bake_alpha_q).
         The finemap (default on, --no-finemap opts out) is npz-cached per
-        dataset so a viewer session pays its build once, not per launch
-        (VERDICT r3 next #5)."""
-        from icon_rt_tpu.models.locator import build_locator_csr, densify_csr
-        from icon_rt_tpu.models.qcells import (bake_alpha_q, quantize_cells,
-                                               quantize_dataset_values)
+        dataset so a viewer session pays its build once, not per launch."""
+        from icon_dvr.models.locator import build_locator_csr, densify_csr
+        from icon_dvr.models.qcells import (bake_alpha_q, quantize_cells,
+                                            quantize_dataset_values)
         if struct.get("q") is None:
             ds_q, lo, hi = quantize_dataset_values(ds)
             struct["q"] = quantize_cells(ds_q, value_range=(lo, hi))
             csr, k_cap = build_locator_csr(ds_q)
             struct["loc_csr"] = (densify_csr(csr, k_cap), k_cap)
             if cfg.get("finemap"):
-                from icon_rt_tpu.data.bigscene import build_finemap_cached
+                from icon_dvr.data.bigscene import build_finemap_cached
                 if cfg["synthetic"] is not None:
                     key = "app_s%d_l%d" % cfg["synthetic"]
                 else:
@@ -362,8 +357,8 @@ def build(argv):
             struct["alpha_parts"] = None   # parts are baked vs LUT+range
         if struct["packed"] is not None:
             if scale_only:
-                from icon_rt_tpu.ops.fast import (apply_opacity_scale,
-                                                  pack_alpha_scale_parts)
+                from icon_dvr.ops.fast import (apply_opacity_scale,
+                                               pack_alpha_scale_parts)
                 if struct.get("alpha_parts") is None:
                     struct["alpha_parts"] = pack_alpha_scale_parts(
                         cells, device["tf"])
@@ -377,11 +372,23 @@ def build(argv):
                 struct["bands_w"], device["tf"].values,
                 device["tf"].value_range)
         if struct.get("packed_w") is not None:
-            from icon_rt_tpu.ops.fast import pack_cells_wedge
+            from icon_dvr.ops.fast import pack_cells_wedge
             struct["packed_w"] = pack_cells_wedge(cells, device["tf"])
 
     pl.set_transfunc_update_handler(on_tf_update)
     on_tf_update(pl.transfunc, 0)
+
+    from icon_dvr.ops import fast as fast_ops
+    chunk_lanes = fast_ops.CHUNK     # read once per build
+
+    def lanes(n_cov, total):
+        """(chunk, n_active) of a fast-raygen frame: n_active is the
+        covered prefix rounded up to a power-of-two number of chunks;
+        a CHUNK of 0 traces that prefix (bucketed at 4096 lanes) as one
+        chunk."""
+        from icon_dvr.ops.order import bucket_active
+        n_act = bucket_active(n_cov, chunk_lanes or 4096, total)
+        return (chunk_lanes or n_act), n_act
 
     W, H = pl.width, pl.height
     frame = {"accum": None, "fb": None, "perm": None, "inv": None}
@@ -394,30 +401,23 @@ def build(argv):
         # unless an explicit --sampler (e.g. brute) was given on the CLI
         sampler = "wedge" if state["mode"] == 2 else (
             cfg["sampler"] if cfg.get("sampler_explicit") else "locator")
-        # in-lane sample batching on the fast raygens (VERDICT r3 next #5:
-        # the interactive path should render at the measured batched rate,
+        # in-lane sample batching on the fast raygens (the interactive
+        # path should render at the measured batched rate,
         # not samples=1); clamped so batch mode honors --sample-limit
         # exactly.  Parity raygens stay samples=1 (the oracle contract).
         spl = 1
         if raygen == "fast":
-            # "auto": frames 0 (compile) and 1 (probe) run at spl=1; the
-            # probe frame's measured wall sizes every later launch
-            # (utils/autosize.auto_spp)
-            want = (state.get("auto_spl", 1) if cfg["samples"] == "auto"
-                    else cfg["samples"])
+            want = cfg["samples"]
             spl = max(1, min(want,
                              pl.sample_limit - frame_id
                              if not pl.interactive else want))
         pl.samples_per_launch = spl
-        auto_probe = (cfg["samples"] == "auto" and raygen == "fast"
-                      and "auto_spl" not in state and frame_id >= 1)
-        t_probe = time.perf_counter() if auto_probe else None
         if (getattr(pl, "preview_pending", False) and raygen == "fast"
                 and (sampler != "wedge" or cfg.get("quantized"))
                 and pl.preview_scale > 1
                 and W % pl.preview_scale == 0
                 and H % pl.preview_scale == 0):
-            # PREVIEW tier (VERDICT r4 next #5): cheap first frame after
+            # PREVIEW tier: cheap first frame after
             # any reset (TF edit / camera move) — 1/scale res, samples=1,
             # presented upscaled; samples_per_launch=0 keeps accumulation
             # honest (the full-res sample 0 renders on the NEXT launch).
@@ -430,27 +430,26 @@ def build(argv):
                 stats.world_bounds_hi, ambient_color=(1.0, 1.0, 1.0),
                 ambient_radiance=1.0,
                 unit_distance=state["unit_distance"], accum_id=0)
-            from icon_rt_tpu.ops.order import bucket_active
             p_p, n_cov_p = pixel_order(lp_p, stats.spherical_bounds_lo[0],
                                        stats.spherical_bounds_hi[0],
                                        Wp, Hp)
-            n_act_p = bucket_active(n_cov_p, 4096, Wp * Hp)
+            chunk_p, n_act_p = lanes(n_cov_p, Wp * Hp)
             acc_p, fb_p = alloc_frame(Wp, Hp)
             if cfg.get("quantized"):
-                from icon_rt_tpu.ops.fastq import render_frame_fast_q
+                from icon_dvr.ops.fastq import render_frame_fast_q
                 qc, (loc_csr, k_cap) = get_q()
                 acc_p, fb_p = render_frame_fast_q(
                     qc, loc_csr, k_cap, get_bands(), device["tf"], lp_p,
                     acc_p, fb_p, width=Wp, height=Hp,
                     pixel_perm=jnp.asarray(p_p), n_active=n_act_p,
-                    finemap=struct.get("fm"), samples=1,
-                    refresh_compact=1024)
+                    finemap=struct.get("fm"), samples=1, chunk=chunk_p,
+                    refresh_compact=chunk_p // 4)
             else:
                 acc_p, fb_p = render_frame_fast(
                     cells, get_packed(), locator, get_bands(), lp_p,
                     acc_p, fb_p, width=Wp, height=Hp,
                     pixel_perm=jnp.asarray(p_p), n_active=n_act_p,
-                    samples=1, refresh_compact=1024)
+                    samples=1, chunk=chunk_p, refresh_compact=chunk_p // 4)
             small = np.asarray(fb_p)[inverse_order(p_p)].reshape(Hp, Wp)
             frame["natural"] = True
             return np.repeat(np.repeat(small, sc, axis=0),
@@ -468,45 +467,43 @@ def build(argv):
         if raygen == "fast":
             if frame["perm"] is None or frame_id == 0:
                 # re-sort rays by expected cost on camera change
-                from icon_rt_tpu.ops.order import bucket_active
                 p, n_cov = pixel_order(lp, stats.spherical_bounds_lo[0],
                                        stats.spherical_bounds_hi[0], W, H)
                 frame["inv"] = inverse_order(p)
                 frame["perm"] = jnp.asarray(p)
-                frame["n_active"] = bucket_active(n_cov, 4096, W * H)
-            # compacted refresh tiers ride the same default the bench
-            # measures (lanes/4 base capacity)
-            compact = 4096 // 4
+                frame["chunk"], frame["n_active"] = lanes(n_cov, W * H)
+            chunk = frame["chunk"]
+            # compacted refresh tiers: lanes/4 base capacity
+            compact = chunk // 4
             if cfg.get("march") and sampler != "wedge":
                 # deterministic transmittance march (ops/march.py): each
-                # launch adds ONE jittered CONVERGED pass — measured 4.8x
-                # faster to a converged image than Woodcock-64 at r2b4
-                # (docs/ROUND5.md); a handful of passes antialias.
+                # launch adds ONE jittered CONVERGED pass; a handful of
+                # passes antialias.
                 pl.samples_per_launch = 1
                 if cfg.get("quantized"):
-                    from icon_rt_tpu.ops.march import render_frame_march_q
+                    from icon_dvr.ops.march import render_frame_march_q
                     qc, (loc_csr, k_cap) = get_q()
                     frame["accum"], frame["fb"] = render_frame_march_q(
                         qc, loc_csr, k_cap, get_bands(), device["tf"], lp,
                         frame["accum"], frame["fb"], width=W, height=H,
                         pixel_perm=frame["perm"],
-                        n_active=frame["n_active"])
+                        n_active=frame["n_active"], chunk=chunk)
                 else:
-                    from icon_rt_tpu.ops.march import render_frame_march
+                    from icon_dvr.ops.march import render_frame_march
                     frame["accum"], frame["fb"] = render_frame_march(
                         cells, get_packed(), locator, get_bands(), lp,
                         frame["accum"], frame["fb"], width=W, height=H,
                         pixel_perm=frame["perm"],
-                        n_active=frame["n_active"])
+                        n_active=frame["n_active"], chunk=chunk)
             elif cfg.get("quantized"):
-                from icon_rt_tpu.ops.fastq import render_frame_fast_q
+                from icon_dvr.ops.fastq import render_frame_fast_q
                 qc, (loc_csr, k_cap) = get_q()
                 frame["accum"], frame["fb"] = render_frame_fast_q(
                     qc, loc_csr, k_cap, get_bands(), device["tf"], lp,
                     frame["accum"], frame["fb"],
                     width=W, height=H, pixel_perm=frame["perm"],
                     n_active=frame["n_active"], finemap=struct.get("fm"),
-                    samples=spl, refresh_compact=compact)
+                    samples=spl, chunk=chunk, refresh_compact=compact)
             elif sampler == "wedge":
                 # mode 2 on the fast raygen: the gather-free wedge tier
                 # (live toggle peer of hostCode.cu:151-168)
@@ -515,14 +512,14 @@ def build(argv):
                     lp, frame["accum"], frame["fb"],
                     width=W, height=H, pixel_perm=frame["perm"],
                     n_active=frame["n_active"], sampler="wedge",
-                    samples=spl, refresh_compact=compact)
+                    samples=spl, chunk=chunk, refresh_compact=compact)
             else:
                 frame["accum"], frame["fb"] = render_frame_fast(
                     cells, get_packed(), locator, get_bands(), lp,
                     frame["accum"], frame["fb"],
                     width=W, height=H, pixel_perm=frame["perm"],
                     n_active=frame["n_active"],
-                    samples=spl, refresh_compact=compact)
+                    samples=spl, chunk=chunk, refresh_compact=compact)
         elif raygen == "accel" and state["accel_active"]:
             accel_mode = state["accel_mode"]
             accel = get_shell() if accel_mode == "sphere" else get_grid()
@@ -536,18 +533,19 @@ def build(argv):
                 cells, device["tf"], lp, frame["accum"], frame["fb"],
                 width=W, height=H, sampler=sampler, locator=locator,
                 wedges=get_wedges() if sampler == "wedge" else None)
-        if auto_probe:
-            # materialize (a wedged worker otherwise returns instantly,
-            # README gotcha) and size every later launch from this warm
-            # samples=1 frame's wall
-            np.asarray(frame["fb"])
-            from icon_rt_tpu.utils.autosize import auto_spp
-            state["auto_spl"] = auto_spp(time.perf_counter() - t_probe)
-            print(f"# auto samples/launch: {state['auto_spl']}",
-                  file=sys.stderr, flush=True)
         return frame["fb"]
 
     pl.set_render_fn(render)
+
+    def accum_natural():
+        """Host copy of the (W*H, 4) linear-RGBA accumulation buffer in
+        natural pixel order (the fast raygen accumulates ray-sorted)."""
+        acc = np.asarray(frame["accum"])
+        if (frame.get("raygen") == "fast" and frame["inv"] is not None
+                and not frame.get("natural")):
+            acc = acc[frame["inv"]]
+        return acc
+    pl.accum_natural = accum_natural
 
     def present_fn(fb, w, h):
         # fast path renders in ray-sorted order; unpermute on the host

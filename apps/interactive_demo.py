@@ -38,20 +38,20 @@ def main(argv=None):
         i += 1
     os.makedirs(out_dir, exist_ok=True)
 
-    from icon_rt_tpu.utils.cache import enable_compilation_cache
+    from icon_dvr.utils.cache import enable_compilation_cache
     enable_compilation_cache()
     import jax.numpy as jnp
-    from icon_rt_tpu.data import synthetic
-    from icon_rt_tpu.models.cells import build_cells, compute_stats
-    from icon_rt_tpu.models.locator import build_locator
-    from icon_rt_tpu.models.shells import build_radial_bands, update_band_majorants
-    from icon_rt_tpu.models.transfunc import DEFAULT_COLORS
-    from icon_rt_tpu.ops.camera import Camera, CameraManip
-    from icon_rt_tpu.ops.fast import pack_cells, render_frame_fast
-    from icon_rt_tpu.ops.render import alloc_frame, fb_to_image, make_launch_params
-    from icon_rt_tpu.pipeline.pipeline import Pipeline, TransfuncState
-    from icon_rt_tpu.utils.metrics import PhaseTimer
-    from icon_rt_tpu.utils.png import write_png
+    from icon_dvr.data import synthetic
+    from icon_dvr.models.cells import build_cells, compute_stats
+    from icon_dvr.models.locator import build_locator
+    from icon_dvr.models.shells import build_radial_bands, update_band_majorants
+    from icon_dvr.models.transfunc import DEFAULT_COLORS
+    from icon_dvr.ops.camera import Camera, CameraManip
+    from icon_dvr.ops.fast import pack_cells, render_frame_fast
+    from icon_dvr.ops.render import alloc_frame, fb_to_image, make_launch_params
+    from icon_dvr.pipeline.pipeline import Pipeline, TransfuncState
+    from icon_dvr.utils.metrics import PhaseTimer
+    from icon_dvr.utils.png import write_png
 
     W = H = size
     ds = synthetic.icosphere(subdivisions=subdiv, num_layers=layers)

@@ -1,6 +1,6 @@
-// icon_host — native host-side builders for the icon_rt_tpu engine.
+// icon_host — native host-side builders for the icon_dvr engine.
 //
-// The TPU owns the render path (XLA/Pallas); these are the host-runtime
+// The accelerator owns the render path (XLA); these are the host-runtime
 // pieces that the reference implements natively (its thread-pool-driven
 // accel builds and ingest, ref: common/thread_pool.h, parallel_for.h,
 // hostCode.cu:652-701).  They are the dataset-load-time hot spots at
@@ -8,7 +8,8 @@
 // rasterization.  Exposed through a plain C ABI for ctypes; OpenMP
 // parallel where safe.
 //
-// Build: native/build.sh (g++ -O3 -shared -fPIC -fopenmp).
+// Build: native/build.sh (g++ -O3 -ffp-contract=off -shared -fPIC
+// -fopenmp); icon_dvr/utils/native.py rebuilds it when it is stale.
 
 #include <algorithm>
 #include <atomic>
@@ -23,7 +24,7 @@ extern "C" {
 //
 // The GEOMETRY (lat/lon hulls incl. great-circle edge-bulge extrema, pole
 // containment, dateline splits) is computed once in Python
-// (icon_rt_tpu.models.locator._range_records) — one source of truth — and
+// (icon_dvr.models.locator._range_records) — one source of truth — and
 // arrives here as (R, 5) i64 records (cell_id, la0, la1, lb0, lb1) sorted
 // by cell id.  Pass 1 counts entries per bin; pass 2 fills a (n_bins, k)
 // int32 table, -1 padded, in ascending cell-id order so query ties
@@ -62,7 +63,7 @@ void ih_locator_fill(const int64_t* rec, int64_t n_rec, int n_lon, int k,
 // edge's latitude extremum can lie strictly BETWEEN its endpoints (the
 // minor arc's closest approach to a pole), so binning by vertex bboxes
 // misses sliver regions.  Mirror of the numpy oracle
-// icon_rt_tpu.models.locator._edge_extrema (same f64 formula order); the
+// icon_dvr.models.locator._edge_extrema (same f64 formula order); the
 // per-cell loop avoids the ~10 ns/cell/temporary numpy tax — at R2B9
 // (84M cells) this is the difference between ~7 min and seconds of the
 // locator build.

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from icon_rt_tpu.utils.lcg import np_lcg_init, np_lcg_next
+from icon_dvr.utils.lcg import np_lcg_init, np_lcg_next
 
 F = np.float32
 

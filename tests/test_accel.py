@@ -3,14 +3,14 @@ import numpy as np
 import jax.numpy as jnp
 
 import refimpl
-from icon_rt_tpu.data import synthetic
-from icon_rt_tpu.models.accel import (build_grid_accel, build_shell_accel,
-                                      compute_max_opacities, update_majorants)
-from icon_rt_tpu.models.cells import build_cells, compute_stats
-from icon_rt_tpu.models.transfunc import make_transfunc
-from icon_rt_tpu.ops.camera import Camera
-from icon_rt_tpu.ops.render import (alloc_frame, make_launch_params,
-                                    render_frame_accel)
+from icon_dvr.data import synthetic
+from icon_dvr.models.accel import (build_grid_accel, build_shell_accel,
+                                   compute_max_opacities, update_majorants)
+from icon_dvr.models.cells import build_cells, compute_stats
+from icon_dvr.models.transfunc import make_transfunc
+from icon_dvr.ops.camera import Camera
+from icon_dvr.ops.render import (alloc_frame, make_launch_params,
+                                 render_frame_accel)
 
 
 def _scene():

@@ -3,15 +3,15 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from icon_rt_tpu.data import synthetic
-from icon_rt_tpu.data.animation import Animation, animate_fast
-from icon_rt_tpu.data.icfile import ICDataset
-from icon_rt_tpu.models.cells import build_cells, compute_stats
-from icon_rt_tpu.models.locator import build_locator
-from icon_rt_tpu.models.shells import build_radial_bands, update_band_majorants
-from icon_rt_tpu.models.transfunc import make_transfunc
-from icon_rt_tpu.ops.camera import Camera
-from icon_rt_tpu.ops.render import make_launch_params
+from icon_dvr.data import synthetic
+from icon_dvr.data.animation import Animation, animate_fast
+from icon_dvr.data.icfile import ICDataset
+from icon_dvr.models.cells import build_cells, compute_stats
+from icon_dvr.models.locator import build_locator
+from icon_dvr.models.shells import build_radial_bands, update_band_majorants
+from icon_dvr.models.transfunc import make_transfunc
+from icon_dvr.ops.camera import Camera
+from icon_dvr.ops.render import make_launch_params
 
 
 def _series(n_t=3):
@@ -73,8 +73,8 @@ def test_animate_fast_sharded_matches_single():
     """Tile-sharded animation equals the single-device animation on the
     covered pixels (per-pixel results depend only on pixel id + accum_id);
     BASELINE configs[4] composition, f32 tier."""
-    from icon_rt_tpu.data.animation import animate_fast_sharded
-    from icon_rt_tpu.parallel.sharded import make_mesh
+    from icon_dvr.data.animation import animate_fast_sharded
+    from icon_dvr.parallel.sharded import make_mesh
 
     W = H = 16
     anim = Animation(_series(2))
@@ -112,17 +112,17 @@ def test_animate_fast_sharded_matches_single():
 
 
 def test_animate_fastq_sharded_4k_two_timesteps():
-    """The FULL north-star composition (BASELINE configs[4], VERDICT r2
-    item 3): quantized tier x tile-sharded mesh x animation, at a 4K-shaped
+    """The FULL north-star composition (BASELINE configs[4]): quantized
+    tier x tile-sharded mesh x animation, at a 4K-shaped
     framebuffer.  The camera is pulled far back so the covered prefix stays
     CPU-sized — the frame SHAPE (3840x2160) and the uneven-tile dealing are
     what this exercises."""
-    from icon_rt_tpu.data import synthetic as syn
-    from icon_rt_tpu.data.animation import animate_fastq_sharded
-    from icon_rt_tpu.models.locator import build_locator_csr, densify_csr
-    from icon_rt_tpu.models.qcells import (quantize_cells,
-                                           quantize_dataset_values)
-    from icon_rt_tpu.parallel.sharded import make_mesh
+    from icon_dvr.data import synthetic as syn
+    from icon_dvr.data.animation import animate_fastq_sharded
+    from icon_dvr.models.locator import build_locator_csr, densify_csr
+    from icon_dvr.models.qcells import (quantize_cells,
+                                        quantize_dataset_values)
+    from icon_dvr.parallel.sharded import make_mesh
 
     W, H = 3840, 2160
     ds = syn.icosphere(subdivisions=1, num_layers=3)
@@ -166,7 +166,7 @@ def test_animate_fastq_sharded_4k_two_timesteps():
 
     # with the two-stage locate (one geometry-only map serves every
     # timestep): bit-identical frames
-    from icon_rt_tpu.models.finemap import build_finemap
+    from icon_dvr.models.finemap import build_finemap
     fm = build_finemap(loc, q.test12, k_cap)
     frames_fm = list(animate_fastq_sharded(q, [vq0, vq1], loc, k_cap, bands,
                                            tf, lp_for, mesh, stats, W, H,

@@ -9,8 +9,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "apps"))
 
 import icon_rt  # noqa: E402
 
-from icon_rt_tpu.data import icfile, synthetic  # noqa: E402
-from icon_rt_tpu.utils.png import read_png  # noqa: E402
+from icon_dvr.data import icfile, synthetic  # noqa: E402
+from icon_dvr.utils.png import read_png  # noqa: E402
 
 
 def _run(args):
@@ -55,7 +55,7 @@ def test_app_cubql_mode(tmp_path):
 
 def test_app_xf_roundtrip(tmp_path):
     """--xf load path: render with a custom transfer function."""
-    from icon_rt_tpu.pipeline.xf import save_xf
+    from icon_dvr.pipeline.xf import save_xf
     xf = str(tmp_path / "t.xf")
     lut = np.tile(np.array([[1, 0, 0, 1.0]], np.float32), (8, 1))
     save_xf(xf, 1.0, (0.0, 1.0), (0.0, 1.0), lut)
@@ -73,7 +73,7 @@ def test_app_xf_roundtrip(tmp_path):
 
 
 def test_app_preview_tier(tmp_path):
-    """Preview contract (VERDICT r4 next #5): with --preview N, the first
+    """Preview contract: with --preview N, the first
     frame after a reset renders at 1/N res and is presented upscaled in
     natural order; samples_per_launch drops to 0 for that launch so the
     full-res sample 0 still renders next."""

@@ -3,18 +3,18 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from icon_rt_tpu.data import synthetic
-from icon_rt_tpu.data.bigscene import (build_locator_csr_from_scene,
-                                       synth_quantized, to_device)
-from icon_rt_tpu.models.cells import compute_stats
-from icon_rt_tpu.models.locator import build_locator_csr, densify_csr
-from icon_rt_tpu.models.qcells import (bake_alpha_q, quantize_cells,
-                                       quantize_dataset_values)
-from icon_rt_tpu.models.shells import build_radial_bands, update_band_majorants
-from icon_rt_tpu.models.transfunc import make_transfunc
-from icon_rt_tpu.ops.camera import Camera
-from icon_rt_tpu.ops.fastq import render_frame_fast_q
-from icon_rt_tpu.ops.render import alloc_frame, make_launch_params
+from icon_dvr.data import synthetic
+from icon_dvr.data.bigscene import (build_locator_csr_from_scene,
+                                    synth_quantized, to_device)
+from icon_dvr.models.cells import compute_stats
+from icon_dvr.models.locator import build_locator_csr, densify_csr
+from icon_dvr.models.qcells import (bake_alpha_q, quantize_cells,
+                                    quantize_dataset_values)
+from icon_dvr.models.shells import build_radial_bands, update_band_majorants
+from icon_dvr.models.transfunc import make_transfunc
+from icon_dvr.ops.camera import Camera
+from icon_dvr.ops.fastq import render_frame_fast_q
+from icon_dvr.ops.render import alloc_frame, make_launch_params
 
 SUBDIV, LAYERS = 2, 5
 
@@ -26,7 +26,7 @@ def _exact():
 
 
 def test_matches_exact_quantization():
-    from icon_rt_tpu.utils.layout import unpack_table
+    from icon_dvr.utils.layout import unpack_table
 
     ds, ds_q, q_exact = _exact()
     sc = synth_quantized(SUBDIV, LAYERS)

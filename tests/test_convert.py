@@ -4,9 +4,9 @@ import pytest
 
 scipy_io = pytest.importorskip("scipy.io")
 
-from icon_rt_tpu.data.netcdf import Dataset
-from icon_rt_tpu.data.icfile import read_ic
-from icon_rt_tpu.tools import convert_icon as ci
+from icon_dvr.data.netcdf import Dataset
+from icon_dvr.data.icfile import read_ic
+from icon_dvr.tools import convert_icon as ci
 
 
 def _write_nc(path, dims, variables, attrs=None):

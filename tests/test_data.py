@@ -1,7 +1,7 @@
 import numpy as np
 
-from icon_rt_tpu.data import icfile, synthetic
-from icon_rt_tpu.models.cells import build_cells, compute_stats, sample_one_cell
+from icon_dvr.data import icfile, synthetic
+from icon_dvr.models.cells import build_cells, compute_stats, sample_one_cell
 
 import jax.numpy as jnp
 
@@ -53,7 +53,7 @@ def test_synthetic_cells_sample_inside():
                synthetic.single_cell()):
         cells = build_cells(ds)
         n = ds.num_cells
-        from icon_rt_tpu.utils.vecmath import np_to_cartesian
+        from icon_dvr.utils.vecmath import np_to_cartesian
         mid_r = 0.5 * (ds.height[:, 0] + ds.height[np.arange(n), ds.num_layers])
         # centroid of the triangle at mid height
         sphs = np.stack([np.repeat(mid_r[:, None], 3, 1), ds.lat, ds.lon], axis=-1)

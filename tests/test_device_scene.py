@@ -7,9 +7,9 @@ self-consistent with its own tables (majorant conservativeness)."""
 import numpy as np
 import pytest
 
-from icon_rt_tpu.data.bigscene import synth_quantized
-from icon_rt_tpu.data.device_scene import synth_quantized_device
-from icon_rt_tpu.utils.layout import unpack_table
+from icon_dvr.data.bigscene import synth_quantized
+from icon_dvr.data.device_scene import synth_quantized_device
+from icon_dvr.utils.layout import unpack_table
 
 SUBDIV, LAYERS = 3, 6
 N = 20 * 4 ** SUBDIV
@@ -112,14 +112,14 @@ def test_renders_like_host_scene(pair):
     to (nearly) the same image as the host-built one."""
     import jax.numpy as jnp
 
-    from icon_rt_tpu.data.bigscene import (build_locator_csr_from_scene,
-                                           to_device)
-    from icon_rt_tpu.models.qcells import bake_alpha_q
-    from icon_rt_tpu.models.shells import update_band_majorants
-    from icon_rt_tpu.models.transfunc import make_transfunc
-    from icon_rt_tpu.ops.camera import Camera
-    from icon_rt_tpu.ops.fastq import render_frame_fast_q
-    from icon_rt_tpu.ops.render import alloc_frame, make_launch_params
+    from icon_dvr.data.bigscene import (build_locator_csr_from_scene,
+                                        to_device)
+    from icon_dvr.models.qcells import bake_alpha_q
+    from icon_dvr.models.shells import update_band_majorants
+    from icon_dvr.models.transfunc import make_transfunc
+    from icon_dvr.ops.camera import Camera
+    from icon_dvr.ops.fastq import render_frame_fast_q
+    from icon_dvr.ops.render import alloc_frame, make_launch_params
 
     sc, dsc = pair
     W = H = 32

@@ -3,17 +3,17 @@ terminate and stay finite on every render path."""
 import numpy as np
 import jax.numpy as jnp
 
-from icon_rt_tpu.data import synthetic
-from icon_rt_tpu.models.accel import (build_grid_accel, build_shell_accel,
-                                      update_majorants)
-from icon_rt_tpu.models.cells import build_cells, compute_stats
-from icon_rt_tpu.models.locator import build_locator
-from icon_rt_tpu.models.shells import build_radial_bands, update_band_majorants
-from icon_rt_tpu.models.transfunc import make_transfunc
-from icon_rt_tpu.ops.camera import Camera
-from icon_rt_tpu.ops.fast import pack_cells, render_frame_fast
-from icon_rt_tpu.ops.render import (alloc_frame, make_launch_params,
-                                    render_frame_accel, render_frame_ae)
+from icon_dvr.data import synthetic
+from icon_dvr.models.accel import (build_grid_accel, build_shell_accel,
+                                   update_majorants)
+from icon_dvr.models.cells import build_cells, compute_stats
+from icon_dvr.models.locator import build_locator
+from icon_dvr.models.shells import build_radial_bands, update_band_majorants
+from icon_dvr.models.transfunc import make_transfunc
+from icon_dvr.ops.camera import Camera
+from icon_dvr.ops.fast import pack_cells, render_frame_fast
+from icon_dvr.ops.render import (alloc_frame, make_launch_params,
+                                 render_frame_accel, render_frame_ae)
 
 
 def _scene():

@@ -3,14 +3,14 @@ the reference-parity brute-force estimator, plus invariants."""
 import numpy as np
 import jax.numpy as jnp
 
-from icon_rt_tpu.data import synthetic
-from icon_rt_tpu.models.cells import build_cells, compute_stats
-from icon_rt_tpu.models.locator import build_locator
-from icon_rt_tpu.models.shells import build_radial_bands, update_band_majorants
-from icon_rt_tpu.models.transfunc import make_transfunc
-from icon_rt_tpu.ops.camera import Camera
-from icon_rt_tpu.ops.fast import pack_cells, pack_profile_rows, render_frame_fast
-from icon_rt_tpu.ops.render import alloc_frame, make_launch_params, render_frame_ae
+from icon_dvr.data import synthetic
+from icon_dvr.models.cells import build_cells, compute_stats
+from icon_dvr.models.locator import build_locator
+from icon_dvr.models.shells import build_radial_bands, update_band_majorants
+from icon_dvr.models.transfunc import make_transfunc
+from icon_dvr.ops.camera import Camera
+from icon_dvr.ops.fast import pack_cells, pack_profile_rows, render_frame_fast
+from icon_dvr.ops.render import alloc_frame, make_launch_params, render_frame_ae
 
 
 def _scene():
@@ -109,8 +109,8 @@ def test_adaptive_reorder_bit_identical():
     """Measured-cost reordering (order.refine_order) between samples must
     not change the unpermuted image: the RNG stream is per-pixel, so lane
     placement is free to change."""
-    from icon_rt_tpu.ops.order import (inverse_order, pixel_order,
-                                       refine_order, repermute)
+    from icon_dvr.ops.order import (inverse_order, pixel_order,
+                                    refine_order, repermute)
 
     ds = synthetic.icosphere(subdivisions=2, num_layers=5)
     stats = compute_stats(ds)
@@ -159,7 +159,7 @@ def test_batched_samples_bit_identical():
     accumulate() lerp order).  The default preserve_cache=True may differ
     on f32 boundary ties between adjacent columns (batch_loop docstring)
     — asserted tie-rare below."""
-    from icon_rt_tpu.ops.order import pixel_order
+    from icon_dvr.ops.order import pixel_order
 
     ds = synthetic.icosphere(subdivisions=2, num_layers=5)
     stats = compute_stats(ds)
@@ -219,7 +219,7 @@ def test_outer_unroll_bit_identical():
     """outer_unroll=u repeats the refresh+steps phase u times per while
     iteration — identical per-lane cadence, so accum/fb must be
     bit-identical at every samples setting."""
-    from icon_rt_tpu.ops.render import alloc_frame, make_launch_params
+    from icon_dvr.ops.render import alloc_frame, make_launch_params
 
     W = H = 24
     ds, stats, cam = _scene()
@@ -249,7 +249,7 @@ def test_refresh_compact_bit_identical():
     scatters (dense fallback when count > P).  _locate arithmetic is
     shared with the dense refresh and every pending lane is served at
     each service point, so accum/fb must be bit-identical."""
-    from icon_rt_tpu.ops.render import alloc_frame, make_launch_params
+    from icon_dvr.ops.render import alloc_frame, make_launch_params
 
     W = H = 24
     ds, stats, cam = _scene()
@@ -281,8 +281,8 @@ def test_opacity_scale_affine_parts_exact():
     (ref postClassify, deviceCode.cu:127-135), so the A/B decomposition
     used by the production scale-edit fast path (apps/icon_rt.py
     on_tf_update scale_only; bench.py tf_edit) is not an approximation."""
-    from icon_rt_tpu.ops.fast import (apply_opacity_scale,
-                                      pack_alpha_scale_parts)
+    from icon_dvr.ops.fast import (apply_opacity_scale,
+                                   pack_alpha_scale_parts)
 
     ds = synthetic.icosphere(subdivisions=2, num_layers=7)
     stats = compute_stats(ds)

@@ -4,17 +4,17 @@ with sagitta inflation, and sample batching."""
 import numpy as np
 import jax.numpy as jnp
 
-from icon_rt_tpu.data import synthetic
-from icon_rt_tpu.models.cells import build_cells, compute_stats
-from icon_rt_tpu.models.locator import build_locator
-from icon_rt_tpu.models.shells import (build_radial_bands_wedge,
-                                       update_band_majorants)
-from icon_rt_tpu.models.transfunc import make_transfunc
-from icon_rt_tpu.models.wedges import build_wedges, bv_all, column_min_norm
-from icon_rt_tpu.ops.camera import Camera
-from icon_rt_tpu.ops.fast import pack_cells_wedge, render_frame_fast
-from icon_rt_tpu.ops.render import (alloc_frame, make_launch_params,
-                                    render_frame_ae)
+from icon_dvr.data import synthetic
+from icon_dvr.models.cells import build_cells, compute_stats
+from icon_dvr.models.locator import build_locator
+from icon_dvr.models.shells import (build_radial_bands_wedge,
+                                    update_band_majorants)
+from icon_dvr.models.transfunc import make_transfunc
+from icon_dvr.models.wedges import build_wedges, bv_all, column_min_norm
+from icon_dvr.ops.camera import Camera
+from icon_dvr.ops.fast import pack_cells_wedge, render_frame_fast
+from icon_dvr.ops.render import (alloc_frame, make_launch_params,
+                                 render_frame_ae)
 
 
 def _scene():
@@ -36,7 +36,7 @@ def test_wedge_bands_conservative():
     ds, stats, cells, loc, tf = _scene()
     bands = update_band_majorants(build_radial_bands_wedge(ds, 16),
                                   tf.values, tf.value_range)
-    from icon_rt_tpu.models.transfunc import post_classify
+    from icon_dvr.models.transfunc import post_classify
     bv = bv_all(ds.value, ds.num_layers)
     mn = column_min_norm(ds.lat, ds.lon)
     edges = np.asarray(bands.edges)

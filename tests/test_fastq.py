@@ -10,19 +10,19 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from icon_rt_tpu.data import synthetic
-from icon_rt_tpu.models.cells import build_cells, compute_stats
-from icon_rt_tpu.models.locator import (build_locator, build_locator_csr,
-                                        densify_csr,
-                                        sample_locator)
-from icon_rt_tpu.models.qcells import (bake_alpha_q, quantize_cells,
-                                       quantize_dataset_values)
-from icon_rt_tpu.models.shells import build_radial_bands, update_band_majorants
-from icon_rt_tpu.models.transfunc import make_transfunc, post_classify
-from icon_rt_tpu.ops.camera import Camera
-from icon_rt_tpu.ops.fast import pack_cells, render_frame_fast
-from icon_rt_tpu.ops.fastq import render_frame_fast_q
-from icon_rt_tpu.ops.render import alloc_frame, make_launch_params
+from icon_dvr.data import synthetic
+from icon_dvr.models.cells import build_cells, compute_stats
+from icon_dvr.models.locator import (build_locator, build_locator_csr,
+                                     densify_csr,
+                                     sample_locator)
+from icon_dvr.models.qcells import (bake_alpha_q, quantize_cells,
+                                    quantize_dataset_values)
+from icon_dvr.models.shells import build_radial_bands, update_band_majorants
+from icon_dvr.models.transfunc import make_transfunc, post_classify
+from icon_dvr.ops.camera import Camera
+from icon_dvr.ops.fast import pack_cells, render_frame_fast
+from icon_dvr.ops.fastq import render_frame_fast_q
+from icon_dvr.ops.render import alloc_frame, make_launch_params
 
 
 @pytest.fixture(scope="module")
@@ -100,7 +100,7 @@ def test_quantized_render_matches_fast(scene):
     ds_q, stats, tf, q, loc_csr, k_cap, bands = scene
     W = H = 48
     cells = build_cells(ds_q)
-    from icon_rt_tpu.models.locator import build_locator as bl
+    from icon_dvr.models.locator import build_locator as bl
     loc = bl(ds_q)
     packed = pack_cells(cells, tf)
     cam = Camera()
@@ -139,7 +139,7 @@ def test_quantized_rng_stream_is_fast_path(scene):
     lp = make_launch_params(cam.basis(W, H), stats.world_bounds_lo,
                             stats.world_bounds_hi, unit_distance=1e4)
     cells = build_cells(ds_q)
-    from icon_rt_tpu.models.locator import build_locator as bl
+    from icon_dvr.models.locator import build_locator as bl
     loc = bl(ds_q)
     packed = pack_cells(cells, tf)
     a1, f1 = render_frame_fast(cells, packed, loc, bands, lp,
@@ -204,7 +204,7 @@ def test_bake_alpha_q_incremental_patch(scene):
     lut[3, 3] *= 0.5
     tf2 = tf._replace(values=jnp.asarray(lut))
     # confirm the edit is actually narrow at the 256-level granularity
-    from icon_rt_tpu.models.qcells import _classify_alpha_table
+    from icon_dvr.models.qcells import _classify_alpha_table
     t1 = np.asarray(_classify_alpha_table(tf, q.value_lo, q.value_hi))
     t2 = np.asarray(_classify_alpha_table(tf2, q.value_lo, q.value_hi))
     n1 = np.floor(t1 / max(t1.max(), 1e-8) * 255).astype(np.uint8)
@@ -235,7 +235,7 @@ def test_bake_alpha_q_curve_edit_rebakes(scene):
 
 def test_outer_unroll_bit_identical_q(scene):
     """Quantized-tier outer_unroll: same bit-exactness as the f32 path."""
-    from icon_rt_tpu.ops.camera import Camera
+    from icon_dvr.ops.camera import Camera
     W = H = 24
     ds_q, stats, tf, q, loc, k_cap, bands = scene
     cam = Camera()
@@ -322,7 +322,7 @@ def test_flat_service_with_finemap(scene):
     """Flat service composed with the fine-map two-stage locate renders
     identically to the flat full locate (the map only short-cuts to the
     same column)."""
-    from icon_rt_tpu.models.finemap import build_finemap
+    from icon_dvr.models.finemap import build_finemap
     ds_q, stats, tf, q, loc_csr, k_cap, bands = scene
     fm = build_finemap(loc_csr, q.test12, k_cap, factor=2)
     W = H = 32
@@ -341,12 +341,29 @@ def test_flat_service_with_finemap(scene):
 
 
 def test_service_cap_auto_gate():
-    """-1 auto picks the flat loop only at giant tables (measured: the
-    ladder wins at r2b8-class scales, docs/ROUND3.md session 5)."""
-    from icon_rt_tpu.ops.fast import (FLAT_AUTO_MIN_CELLS,
-                                      _resolve_service_cap)
+    """-1 auto picks the flat loop only at giant tables (the ladder won
+    at r2b8-class scales on the earlier accelerator)."""
+    from icon_dvr.ops.fast import (FLAT_AUTO_MIN_CELLS,
+                                   _resolve_service_cap)
     assert _resolve_service_cap(-1, 1_310_720, 8192) == 0
     assert _resolve_service_cap(-1, FLAT_AUTO_MIN_CELLS, 8192) == 4096
     assert _resolve_service_cap(-1, 84_000_000, 100) == 128  # floor
     assert _resolve_service_cap(0, 84_000_000, 8192) == 0    # explicit
     assert _resolve_service_cap(256, 1_000, 8192) == 256     # explicit
+
+
+def test_bake_alpha_q_propagates_device_failure(scene, monkeypatch):
+    """A failing device bake raises; it is not redone on the host."""
+    from icon_dvr.models import qcells
+    ds_q, stats, tf, q, loc_csr, k_cap, bands = scene
+
+    def fail(*a, **k):
+        raise RuntimeError("RESOURCE_EXHAUSTED: out of memory")
+    monkeypatch.setattr(qcells, "_bake_lookup", fail)
+    monkeypatch.setattr(qcells, "_bake_patch", fail)
+    n = tf.values.shape[0]
+    tf2 = tf._replace(values=tf.values.at[:n // 2, 3].multiply(0.3))
+    with pytest.raises(RuntimeError, match="RESOURCE_EXHAUSTED"):
+        qcells.bake_alpha_q(q._replace(alpha_tab=None), tf2)
+    with pytest.raises(RuntimeError, match="RESOURCE_EXHAUSTED"):
+        qcells.bake_alpha_q(q, tf2)

@@ -13,20 +13,20 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from icon_rt_tpu.data import synthetic
-from icon_rt_tpu.models.cells import compute_stats
-from icon_rt_tpu.models.finemap import K_CAND, build_finemap, \
+from icon_dvr.data import synthetic
+from icon_dvr.models.cells import compute_stats
+from icon_dvr.models.finemap import K_CAND, build_finemap, \
     unpack_candidates
-from icon_rt_tpu.models.locator import build_locator_csr, densify_csr
-from icon_rt_tpu.models.qcells import bake_alpha_q, quantize_cells, \
+from icon_dvr.models.locator import build_locator_csr, densify_csr
+from icon_dvr.models.qcells import bake_alpha_q, quantize_cells, \
     quantize_dataset_values
-from icon_rt_tpu.models.shells import build_radial_bands, \
+from icon_dvr.models.shells import build_radial_bands, \
     update_band_majorants
-from icon_rt_tpu.models.transfunc import make_transfunc
-from icon_rt_tpu.ops.camera import Camera
-from icon_rt_tpu.ops.fastq import render_frame_fast_q
-from icon_rt_tpu.ops.render import alloc_frame, make_launch_params
-from icon_rt_tpu.utils.layout import unpack_table
+from icon_dvr.models.transfunc import make_transfunc
+from icon_dvr.ops.camera import Camera
+from icon_dvr.ops.fastq import render_frame_fast_q
+from icon_dvr.ops.render import alloc_frame, make_launch_params
+from icon_dvr.utils.layout import unpack_table
 
 
 @pytest.fixture(scope="module")
@@ -160,8 +160,8 @@ def test_two_stage_tail_overflow(scene):
     stay unserved so _compact_service keeps them pending for the next
     phase — the overflow mode the fixed-tier refresh relies on."""
     import jax.numpy as jnp
-    from icon_rt_tpu.ops.fast import _two_stage_locate
-    from icon_rt_tpu.ops.fastq import _locate_q, _locate_q_fine
+    from icon_dvr.ops.fast import _two_stage_locate
+    from icon_dvr.ops.fastq import _locate_q, _locate_q_fine
 
     ds_q, stats, tf, q, loc, k_cap, bands, fm = scene
     rng = np.random.default_rng(5)
@@ -203,10 +203,10 @@ def test_two_stage_tail_overflow(scene):
 def test_finemap_render_bit_identical_f32(scene):
     """The f32 tier's two-stage locate (normals_table + _locate_fine):
     same exactness contract as the quantized tier."""
-    from icon_rt_tpu.models.cells import build_cells
-    from icon_rt_tpu.models.finemap import normals_table
-    from icon_rt_tpu.models.locator import build_locator
-    from icon_rt_tpu.ops.fast import pack_cells, render_frame_fast
+    from icon_dvr.models.cells import build_cells
+    from icon_dvr.models.finemap import normals_table
+    from icon_dvr.models.locator import build_locator
+    from icon_dvr.ops.fast import pack_cells, render_frame_fast
 
     ds_q, stats, tf, q, loc_q, k_cap, bands, _ = scene
     cells = build_cells(ds_q)
@@ -237,7 +237,7 @@ def test_finemap_cache_roundtrip(scene, tmp_path, monkeypatch):
     bit-exactly (pairs, window, dims), and a cache hit never calls the
     builder (the device build is ~10-17 min at R2B9 per bench-row
     subprocess; the cache exists to pay it once)."""
-    from icon_rt_tpu.data import bigscene
+    from icon_dvr.data import bigscene
 
     ds_q, stats, tf, q, loc, k_cap, bands, fm = scene
     monkeypatch.setattr(bigscene, "_CACHE_DIR", str(tmp_path))
@@ -250,7 +250,7 @@ def test_finemap_cache_roundtrip(scene, tmp_path, monkeypatch):
         raise AssertionError("cache miss: builder called on second load")
 
     monkeypatch.setattr(bigscene, "build_finemap", boom, raising=False)
-    import icon_rt_tpu.models.finemap as fmod
+    import icon_dvr.models.finemap as fmod
     monkeypatch.setattr(fmod, "build_finemap", boom)
     fm2 = bigscene.build_finemap_cached(loc, q.test12, k_cap, factor=2,
                                         cache_key="t_l5")

@@ -10,11 +10,11 @@ the snippet in the docstring of _regen below in that case.
 import numpy as np
 import jax.numpy as jnp
 
-from icon_rt_tpu.data import synthetic
-from icon_rt_tpu.models.cells import build_cells, compute_stats
-from icon_rt_tpu.models.transfunc import make_transfunc
-from icon_rt_tpu.ops.camera import Camera
-from icon_rt_tpu.ops.render import alloc_frame, make_launch_params, render_frame_ae
+from icon_dvr.data import synthetic
+from icon_dvr.models.cells import build_cells, compute_stats
+from icon_dvr.models.transfunc import make_transfunc
+from icon_dvr.ops.camera import Camera
+from icon_dvr.ops.render import alloc_frame, make_launch_params, render_frame_ae
 
 GOLDEN_FB = np.array([
     0, 0, 0, 0, 0, 0, 0, 0,

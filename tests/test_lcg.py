@@ -3,7 +3,7 @@ reference's LCG<4> (common/dvr_course-common-both.h:41-88) compiled host-side.""
 import jax.numpy as jnp
 import numpy as np
 
-from icon_rt_tpu.utils.lcg import lcg_init, lcg_next, np_lcg_init, np_lcg_next
+from icon_dvr.utils.lcg import lcg_init, lcg_next, np_lcg_init, np_lcg_next
 
 # (seed0, seed1, state_after_init, first 6 draws, state after 6 draws)
 GOLDEN = [

@@ -3,12 +3,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from icon_rt_tpu.data import synthetic
-from icon_rt_tpu.models.cells import build_cells, compute_stats, sample_brute_force
-from icon_rt_tpu.models.locator import build_locator, sample_locator
-from icon_rt_tpu.models.transfunc import make_transfunc
-from icon_rt_tpu.ops.camera import Camera
-from icon_rt_tpu.ops.render import alloc_frame, make_launch_params, render_frame_ae
+from icon_dvr.data import synthetic
+from icon_dvr.models.cells import build_cells, compute_stats, sample_brute_force
+from icon_dvr.models.locator import build_locator, sample_locator
+from icon_dvr.models.transfunc import make_transfunc
+from icon_dvr.ops.camera import Camera
+from icon_dvr.ops.render import alloc_frame, make_launch_params, render_frame_ae
 
 
 def _random_points(stats, n, seed=0):
@@ -40,11 +40,10 @@ def test_locator_matches_brute_force():
 def test_locator_edge_bulge():
     """Great-circle cell edges BULGE in latitude past their endpoints (an
     arc's closest approach to a pole lies between its vertices), so the
-    round-2 vertex-bbox binning missed sliver regions — the locator
-    returned no-hit for points brute-force containment puts inside a
-    cell (round-3 fine-map cross-check found 531 such points on one
-    camera ray at subdiv 1).  Coarse cells make the slivers fat: at
-    subdiv 1 this test fails the old binning on ~1% of points."""
+    vertex-bbox binning missed sliver regions — the locator returned no-hit for
+    points brute-force containment puts inside a cell (531 such points on one
+    camera ray at subdiv 1).  Coarse cells make the slivers fat: at subdiv 1
+    this test fails the old binning on ~1% of points."""
     ds = synthetic.icosphere(subdivisions=1, num_layers=3)
     stats = compute_stats(ds)
     cells = build_cells(ds)

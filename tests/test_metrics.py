@@ -1,8 +1,8 @@
 import numpy as np
 
-from icon_rt_tpu.utils.color import make_rgba
-from icon_rt_tpu.utils.metrics import (PhaseTimer, accum_rmse, image_rmse,
-                                       within_tonemap_lsb)
+from icon_dvr.utils.color import make_rgba
+from icon_dvr.utils.metrics import (PhaseTimer, accum_rmse, image_rmse,
+                                    within_tonemap_lsb)
 
 import jax.numpy as jnp
 

@@ -2,9 +2,9 @@
 import numpy as np
 import pytest
 
-from icon_rt_tpu.data import synthetic
-from icon_rt_tpu.models.locator import build_locator
-from icon_rt_tpu.utils.native import get_lib, native_crop_mask
+from icon_dvr.data import synthetic
+from icon_dvr.models.locator import build_locator
+from icon_dvr.utils.native import get_lib, native_crop_mask
 
 
 needs_native = pytest.mark.skipif(get_lib() is None,
@@ -29,9 +29,9 @@ def test_native_locator_matches_numpy():
 
 @needs_native
 def test_native_rasterize_matches_numpy():
-    import icon_rt_tpu.utils.native as native_mod
-    from icon_rt_tpu.models import accel as accel_mod
-    from icon_rt_tpu.models.cells import compute_stats
+    import icon_dvr.utils.native as native_mod
+    from icon_dvr.models import accel as accel_mod
+    from icon_dvr.models.cells import compute_stats
 
     ds = synthetic.icosphere(subdivisions=2, num_layers=3)
     stats = compute_stats(ds)
@@ -68,7 +68,7 @@ def test_native_edge_extrema_matches_numpy():
     last bit) — harmless, since the analytic boundary itself is only
     ~1e-16 accurate and bin rectangles are derived from these values by
     wide binning."""
-    from icon_rt_tpu.models.locator import _edge_extrema
+    from icon_dvr.models.locator import _edge_extrema
 
     # real mesh triangles (includes the pole-containing icosphere caps)
     ds = synthetic.icosphere(subdivisions=3, num_layers=1)

@@ -3,15 +3,15 @@ render (identical per-pixel results — the RNG is seeded by pixel id)."""
 import numpy as np
 import jax.numpy as jnp
 
-from icon_rt_tpu.data import synthetic
-from icon_rt_tpu.models.cells import build_cells, compute_stats
-from icon_rt_tpu.models.locator import build_locator
-from icon_rt_tpu.models.shells import build_radial_bands, update_band_majorants
-from icon_rt_tpu.models.transfunc import make_transfunc
-from icon_rt_tpu.ops.camera import Camera
-from icon_rt_tpu.ops.fast import pack_cells, render_frame_fast
-from icon_rt_tpu.ops.order import inverse_order, pixel_order
-from icon_rt_tpu.ops.render import alloc_frame, make_launch_params
+from icon_dvr.data import synthetic
+from icon_dvr.models.cells import build_cells, compute_stats
+from icon_dvr.models.locator import build_locator
+from icon_dvr.models.shells import build_radial_bands, update_band_majorants
+from icon_dvr.models.transfunc import make_transfunc
+from icon_dvr.ops.camera import Camera
+from icon_dvr.ops.fast import pack_cells, render_frame_fast
+from icon_dvr.ops.order import inverse_order, pixel_order
+from icon_dvr.ops.render import alloc_frame, make_launch_params
 
 
 def test_permuted_render_matches_unsorted():
@@ -56,7 +56,7 @@ def test_permuted_render_matches_unsorted():
 
 
 def test_bucket_active():
-    from icon_rt_tpu.ops.order import bucket_active
+    from icon_dvr.ops.order import bucket_active
     assert bucket_active(1, 4096, 100 * 4096) == 4096
     assert bucket_active(5000, 4096, 100 * 4096) == 2 * 4096
     assert bucket_active(9000, 4096, 100 * 4096) == 4 * 4096

@@ -4,9 +4,9 @@ import sys
 
 import numpy as np
 
-from icon_rt_tpu.pipeline.pipeline import Pipeline, TransfuncState
-from icon_rt_tpu.pipeline.tfe import TFE, AlphaEditor, MouseEvent
-from icon_rt_tpu.pipeline.xf import load_xf, save_xf
+from icon_dvr.pipeline.pipeline import Pipeline, TransfuncState
+from icon_dvr.pipeline.tfe import TFE, AlphaEditor, MouseEvent
+from icon_dvr.pipeline.xf import load_xf, save_xf
 
 
 def test_xf_roundtrip(tmp_path):
@@ -73,7 +73,7 @@ def test_pipeline_cli_and_loop():
     pl.set_frame(999, 999)  # overridden by --size
     assert (pl.width, pl.height) == (8, 4)
     assert pl.sample_limit == 3
-    from icon_rt_tpu.ops.camera import Camera
+    from icon_dvr.ops.camera import Camera
     cam = Camera()
     pl.set_camera(cam)
     pl.set_transfunc(TransfuncState(
@@ -107,7 +107,7 @@ def test_pipeline_cli_and_loop():
 def test_pipeline_camera_cli_override():
     pl = Pipeline(["--camera", "1", "2", "3", "0", "0", "0", "0", "0", "1",
                    "-fovy", "45"])
-    from icon_rt_tpu.ops.camera import Camera
+    from icon_dvr.ops.camera import Camera
     cam = Camera()
     pl.set_camera(cam)
     np.testing.assert_allclose(cam.position, [1, 2, 3], atol=1e-6)
@@ -127,7 +127,7 @@ def test_pipeline_save_transfunc(tmp_path):
 def test_pipeline_key_handlers(tmp_path, capsys, monkeypatch):
     monkeypatch.chdir(tmp_path)
     pl = Pipeline([], name="keys")
-    from icon_rt_tpu.ops.camera import Camera
+    from icon_dvr.ops.camera import Camera
     cam = Camera()
     cam.set_orientation([1, 2, 3], [0, 0, 0], [0, 0, 1], cam.fovy)
     pl.set_camera(cam)
@@ -152,7 +152,7 @@ def test_pipeline_multiple_transfuncs():
     """Multiple TF slots with independent editor tabs
     (ref: pipeline.cu:456-478, 645-668)."""
     pl = Pipeline(["--sample-limit", "10"])
-    from icon_rt_tpu.ops.camera import Camera
+    from icon_dvr.ops.camera import Camera
     pl.set_camera(Camera())
     lut_a = np.tile(np.array([[1, 0, 0, 1.0]], np.float32), (4, 1))
     lut_b = np.tile(np.array([[0, 0, 1, 0.5]], np.float32), (4, 1))
@@ -177,7 +177,7 @@ def test_pipeline_multiple_transfuncs():
 def test_bgcolor_composite(tmp_path):
     """--bgcolor fills never-hit pixels at presentation, like the
     reference's cleared canvas (ref: common/pipeline.cu:721,760)."""
-    from icon_rt_tpu.ops.render import fb_to_image
+    from icon_dvr.ops.render import fb_to_image
 
     pl = Pipeline(["--bgcolor", "0.25", "0.5", "1.0"], name=str(tmp_path / "p"))
     np.testing.assert_allclose(pl.bgcolor, [0.25, 0.5, 1.0])
@@ -199,7 +199,7 @@ def test_bgcolor_composite(tmp_path):
         img2 = arr
         return True
 
-    import icon_rt_tpu.pipeline.pipeline as plmod
+    import icon_dvr.pipeline.pipeline as plmod
     orig = plmod.write_png
     plmod.write_png = spy
     try:

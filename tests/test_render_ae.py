@@ -3,12 +3,12 @@ import numpy as np
 import jax.numpy as jnp
 
 import refimpl
-from icon_rt_tpu.data import synthetic
-from icon_rt_tpu.models.cells import build_cells, compute_stats
-from icon_rt_tpu.models.transfunc import make_transfunc, post_classify
-from icon_rt_tpu.ops.camera import Camera
-from icon_rt_tpu.ops.render import (alloc_frame, fb_to_image, make_launch_params,
-                                    render_frame_ae)
+from icon_dvr.data import synthetic
+from icon_dvr.models.cells import build_cells, compute_stats
+from icon_dvr.models.transfunc import make_transfunc, post_classify
+from icon_dvr.ops.camera import Camera
+from icon_dvr.ops.render import (alloc_frame, fb_to_image, make_launch_params,
+                                 render_frame_ae)
 
 
 def _scene(num_layers=3):
@@ -37,7 +37,7 @@ def test_post_classify_matches_oracle():
 def test_post_classify_packed_bit_identical():
     # the hot-loop variant (aligned packed-LUT row gathers) must equal
     # post_classify bit-for-bit, including out-of-range clamps
-    from icon_rt_tpu.models.transfunc import pack_lut, post_classify_packed
+    from icon_dvr.models.transfunc import pack_lut, post_classify_packed
     tf = make_transfunc(value_range=(0.1, 0.8))._replace(
         opacity_scale=jnp.float32(0.6))
     v = jnp.asarray(np.random.default_rng(1)

@@ -13,20 +13,20 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh
 
-from icon_rt_tpu.data import synthetic
-from icon_rt_tpu.models.cells import compute_stats
-from icon_rt_tpu.models.locator import build_locator_csr, densify_csr
-from icon_rt_tpu.models.qcells import bake_alpha_q, quantize_cells
-from icon_rt_tpu.models.shells import (build_radial_bands,
-                                       update_band_majorants)
-from icon_rt_tpu.models.transfunc import make_transfunc
-from icon_rt_tpu.ops.camera import Camera
-from icon_rt_tpu.ops.fastq import render_fast_q
-from icon_rt_tpu.ops.render import _finalize, alloc_frame, make_launch_params
-from icon_rt_tpu.parallel.scene_shard import (build_sharded_scene,
-                                              jit_render_frame_scene_sharded,
-                                              partition_dataset,
-                                              shard_scene)
+from icon_dvr.data import synthetic
+from icon_dvr.models.cells import compute_stats
+from icon_dvr.models.locator import build_locator_csr, densify_csr
+from icon_dvr.models.qcells import bake_alpha_q, quantize_cells
+from icon_dvr.models.shells import (build_radial_bands,
+                                    update_band_majorants)
+from icon_dvr.models.transfunc import make_transfunc
+from icon_dvr.ops.camera import Camera
+from icon_dvr.ops.fastq import render_fast_q
+from icon_dvr.ops.render import _finalize, alloc_frame, make_launch_params
+from icon_dvr.parallel.scene_shard import (build_sharded_scene,
+                                           jit_render_frame_scene_sharded,
+                                           partition_dataset,
+                                           shard_scene)
 
 W = H = 24
 SPP = 24
@@ -105,7 +105,7 @@ def test_scene_sharded_render_matches_reference():
 
 
 def test_scene_sharded_tiles_matches_slabs_only():
-    """The production slabs x tiles mesh (VERDICT r4 next #6): the
+    """The production slabs x tiles mesh: the
     framebuffer row-sharded over 'tiles' with the argmin-select composite
     reducing over 'slabs' only must produce the SAME image as the same
     slab partition on a tiles=1 mesh — tiling is pure scheduling."""
@@ -142,7 +142,7 @@ def test_scene_sharded_salt_decorrelates():
     """Distinct slabs must draw distinct tracking streams (a shared
     stream would bias the min-t composite): check the salted init
     produces different RNG states per salt."""
-    from icon_rt_tpu.ops.fast import _init_lanes
+    from icon_dvr.ops.fast import _init_lanes
 
     ds, stats, tf, lp = _setup()
     edges = jnp.linspace(stats.spherical_bounds_lo[0],

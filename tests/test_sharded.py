@@ -3,15 +3,15 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from icon_rt_tpu.data import synthetic
-from icon_rt_tpu.models.accel import build_grid_accel, update_majorants
-from icon_rt_tpu.models.cells import build_cells, compute_stats
-from icon_rt_tpu.models.locator import build_locator
-from icon_rt_tpu.models.transfunc import make_transfunc
-from icon_rt_tpu.ops.camera import Camera
-from icon_rt_tpu.ops.render import alloc_frame, make_launch_params, render_frame_accel
-from icon_rt_tpu.parallel.sharded import (gather_frame, jit_render_frame_sharded,
-                                          make_mesh, shard_frame)
+from icon_dvr.data import synthetic
+from icon_dvr.models.accel import build_grid_accel, update_majorants
+from icon_dvr.models.cells import build_cells, compute_stats
+from icon_dvr.models.locator import build_locator
+from icon_dvr.models.transfunc import make_transfunc
+from icon_dvr.ops.camera import Camera
+from icon_dvr.ops.render import alloc_frame, make_launch_params, render_frame_accel
+from icon_dvr.parallel.sharded import (gather_frame, jit_render_frame_sharded,
+                                       make_mesh, shard_frame)
 
 
 def _setup(W, H):
@@ -85,9 +85,9 @@ def test_sample_sharded_composites():
 
 def test_fast_raygen_sharded():
     """The flagship fast raygen through the (tiles, samples) mesh."""
-    from icon_rt_tpu.models.shells import build_radial_bands, update_band_majorants
-    from icon_rt_tpu.ops.fast import pack_cells, render_frame_fast
-    from icon_rt_tpu.data import synthetic as syn
+    from icon_dvr.models.shells import build_radial_bands, update_band_majorants
+    from icon_dvr.ops.fast import pack_cells, render_frame_fast
+    from icon_dvr.data import synthetic as syn
 
     W = H = 16
     ds = syn.icosphere(subdivisions=2, num_layers=4)
@@ -120,16 +120,16 @@ def test_fast_sharded_cost_dealt():
     per-device expected cost is near-uniform, and the image equals the
     single-device fast render exactly (per-pixel results depend only on
     pixel id + accum_id)."""
-    from icon_rt_tpu.models.shells import build_radial_bands, update_band_majorants
-    from icon_rt_tpu.ops.fast import pack_cells, render_frame_fast
-    from icon_rt_tpu.ops.order import pixel_order
-    from icon_rt_tpu.ops.render import fb_to_image
-    from icon_rt_tpu.parallel.sharded import (alloc_fast_sharded_frame,
-                                              jit_render_frame_fast_sharded,
-                                              plan_fast_sharding,
-                                              scatter_fast_frame,
-                                              shard_local_pix)
-    from icon_rt_tpu.data import synthetic as syn
+    from icon_dvr.models.shells import build_radial_bands, update_band_majorants
+    from icon_dvr.ops.fast import pack_cells, render_frame_fast
+    from icon_dvr.ops.order import pixel_order
+    from icon_dvr.ops.render import fb_to_image
+    from icon_dvr.parallel.sharded import (alloc_fast_sharded_frame,
+                                           jit_render_frame_fast_sharded,
+                                           plan_fast_sharding,
+                                           scatter_fast_frame,
+                                           shard_local_pix)
+    from icon_dvr.data import synthetic as syn
 
     W, H = 32, 24
     ds = syn.icosphere(subdivisions=2, num_layers=4)
@@ -160,7 +160,7 @@ def test_fast_sharded_cost_dealt():
     # balance: covered counts equal +-1; expected chord cost near-uniform
     covered = (local >= 0).sum(axis=1)
     assert covered.max() - covered.min() <= 1
-    from icon_rt_tpu.ops.order import _chord_keys
+    from icon_dvr.ops.order import _chord_keys
     ys, xs = np.divmod(np.arange(W * H, dtype=np.int32), W)
     keys = np.asarray(_chord_keys(lp.cam_org, lp.cam_dir00, lp.cam_du,
                                   lp.cam_dv, jnp.float32(stats.spherical_bounds_lo[0]),
@@ -186,15 +186,15 @@ def test_fast_sharded_cost_dealt():
 def test_fast_sharded_inlane_samples():
     """samples=S on the sharded fast path equals S sequential sharded
     steps bit-for-bit (in-lane batching under shard_map)."""
-    from icon_rt_tpu.models.shells import build_radial_bands, update_band_majorants
-    from icon_rt_tpu.ops.fast import pack_cells
-    from icon_rt_tpu.ops.order import pixel_order
-    from icon_rt_tpu.parallel.sharded import (alloc_fast_sharded_frame,
-                                              jit_render_frame_fast_sharded,
-                                              plan_fast_sharding,
-                                              scatter_fast_frame,
-                                              shard_local_pix)
-    from icon_rt_tpu.data import synthetic as syn
+    from icon_dvr.models.shells import build_radial_bands, update_band_majorants
+    from icon_dvr.ops.fast import pack_cells
+    from icon_dvr.ops.order import pixel_order
+    from icon_dvr.parallel.sharded import (alloc_fast_sharded_frame,
+                                           jit_render_frame_fast_sharded,
+                                           plan_fast_sharding,
+                                           scatter_fast_frame,
+                                           shard_local_pix)
+    from icon_dvr.data import synthetic as syn
 
     W, H = 32, 24
     ds = syn.icosphere(subdivisions=2, num_layers=4)
@@ -237,12 +237,12 @@ def test_fast_sharded_inlane_samples():
 
 
 def _qscene(subdivisions=2, num_layers=5):
-    from icon_rt_tpu.models.locator import build_locator_csr, densify_csr
-    from icon_rt_tpu.models.qcells import (bake_alpha_q, quantize_cells,
-                                           quantize_dataset_values)
-    from icon_rt_tpu.models.shells import (build_radial_bands,
-                                           update_band_majorants)
-    from icon_rt_tpu.data import synthetic as syn
+    from icon_dvr.models.locator import build_locator_csr, densify_csr
+    from icon_dvr.models.qcells import (bake_alpha_q, quantize_cells,
+                                        quantize_dataset_values)
+    from icon_dvr.models.shells import (build_radial_bands,
+                                        update_band_majorants)
+    from icon_dvr.data import synthetic as syn
 
     ds = syn.icosphere(subdivisions=subdivisions, num_layers=num_layers)
     ds_q, lo, hi = quantize_dataset_values(ds)
@@ -257,16 +257,16 @@ def _qscene(subdivisions=2, num_layers=5):
 
 
 def test_fastq_sharded_matches_single_device():
-    """The north-star composition (VERDICT r2 missing #2): the QUANTIZED
+    """The north-star composition: the QUANTIZED
     tier under shard_map equals the single-device quantized render
     bit-for-bit (per-pixel results depend only on pixel id + accum_id)."""
-    from icon_rt_tpu.ops.fastq import render_frame_fast_q
-    from icon_rt_tpu.ops.order import pixel_order
-    from icon_rt_tpu.parallel.sharded import (alloc_fast_sharded_frame,
-                                              jit_render_frame_fastq_sharded,
-                                              plan_fast_sharding,
-                                              scatter_fast_frame,
-                                              shard_local_pix)
+    from icon_dvr.ops.fastq import render_frame_fast_q
+    from icon_dvr.ops.order import pixel_order
+    from icon_dvr.parallel.sharded import (alloc_fast_sharded_frame,
+                                           jit_render_frame_fastq_sharded,
+                                           plan_fast_sharding,
+                                           scatter_fast_frame,
+                                           shard_local_pix)
 
     W, H = 32, 24
     ds_q, stats, tf, q, loc, k_cap, bands = _qscene()
@@ -285,7 +285,7 @@ def test_fastq_sharded_matches_single_device():
     T, chunk = 8, 16
     local = plan_fast_sharding(perm, n_active, T, chunk)
     mesh = make_mesh(tiles=T, samples=1)
-    from icon_rt_tpu.parallel.sharded import replicate_tables
+    from icon_dvr.parallel.sharded import replicate_tables
     q_r, loc_r = replicate_tables(mesh, (q, loc))
     step = jit_render_frame_fastq_sharded(mesh, width=W, height=H,
                                           chunk=chunk, k_cap=k_cap,
@@ -301,7 +301,7 @@ def test_fastq_sharded_matches_single_device():
     np.testing.assert_array_equal(img, np.asarray(f_ref))
 
     # ... and with the fine-map primary locate (still bit-identical)
-    from icon_rt_tpu.models.finemap import build_finemap
+    from icon_dvr.models.finemap import build_finemap
     fm = replicate_tables(mesh, build_finemap(loc, q.test12, k_cap))
     accum, fb = alloc_fast_sharded_frame(mesh, local)
     accum, fb = step(q_r, loc_r, bands, tf, lp, accum, fb, pix_dev,
@@ -313,12 +313,12 @@ def test_fastq_sharded_matches_single_device():
 def test_fastq_sharded_inlane_samples():
     """Quantized tier + in-lane sample batching + shard_map: equals
     sequential sharded quantized steps bit-for-bit."""
-    from icon_rt_tpu.ops.order import pixel_order
-    from icon_rt_tpu.parallel.sharded import (alloc_fast_sharded_frame,
-                                              jit_render_frame_fastq_sharded,
-                                              plan_fast_sharding,
-                                              scatter_fast_frame,
-                                              shard_local_pix)
+    from icon_dvr.ops.order import pixel_order
+    from icon_dvr.parallel.sharded import (alloc_fast_sharded_frame,
+                                           jit_render_frame_fastq_sharded,
+                                           plan_fast_sharding,
+                                           scatter_fast_frame,
+                                           shard_local_pix)
 
     W, H = 32, 24
     ds_q, stats, tf, q, loc, k_cap, bands = _qscene()
@@ -333,7 +333,7 @@ def test_fastq_sharded_inlane_samples():
     local = plan_fast_sharding(perm, n_active, T, chunk)
     mesh = make_mesh(tiles=T, samples=1)
     pix_dev = shard_local_pix(mesh, local)
-    from icon_rt_tpu.parallel.sharded import replicate_tables
+    from icon_dvr.parallel.sharded import replicate_tables
     q, loc = replicate_tables(mesh, (q, loc))
 
     step1 = jit_render_frame_fastq_sharded(mesh, width=W, height=H,
@@ -357,14 +357,14 @@ def test_fastq_sharded_inlane_samples():
 
 
 def test_sample_axis_composite_image_rmse():
-    """VERDICT r2 weak #8: the samples-axis psum composite accumulates
+    """The samples-axis psum composite accumulates
     sample MEANS where the reference accumulates samples sequentially —
     the orders differ at silhouette pixels whose per-sample alpha
     composite is order-sensitive.  Bound how visible that actually is AT
     IMAGE LEVEL: RMSE of the presented 8-bit image (sharded 2x4 mesh,
     4-sample psum composite vs the same 4 samples sequentially on one
     device) must stay under 2/255 per channel, with identical coverage."""
-    from icon_rt_tpu.ops.render import fb_to_image
+    from icon_dvr.ops.render import fb_to_image
 
     W = H = 32
     cells, loc, tf, ga, lp = _setup(W, H)

@@ -17,8 +17,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "apps"))
 
 import icon_rt  # noqa: E402
 
-from icon_rt_tpu.pipeline.xf import save_xf  # noqa: E402
-from icon_rt_tpu.utils.png import read_png  # noqa: E402
+from icon_dvr.pipeline.xf import save_xf  # noqa: E402
+from icon_dvr.utils.png import read_png  # noqa: E402
 
 
 def _frame(pl, out):
@@ -31,8 +31,8 @@ def _frame(pl, out):
 @pytest.fixture()
 def spy(monkeypatch):
     """Record which render path each frame dispatches to."""
-    import icon_rt_tpu.ops.fast as fast_mod
-    import icon_rt_tpu.ops.render as render_mod
+    import icon_dvr.ops.fast as fast_mod
+    import icon_dvr.ops.render as render_mod
     calls = []
 
     def wrap(mod, name):

@@ -5,11 +5,11 @@ import jax
 import jax.numpy as jnp
 
 import refimpl
-from icon_rt_tpu.data import synthetic
-from icon_rt_tpu.models.cells import build_cells, compute_stats
-from icon_rt_tpu.models.locator import build_locator
-from icon_rt_tpu.models.wedges import build_wedges, sample_wedges
-from icon_rt_tpu.ops.uelems import intersect_hex, intersect_pyramid, intersect_wedge
+from icon_dvr.data import synthetic
+from icon_dvr.models.cells import build_cells, compute_stats
+from icon_dvr.models.locator import build_locator
+from icon_dvr.models.wedges import build_wedges, sample_wedges
+from icon_dvr.ops.uelems import intersect_hex, intersect_pyramid, intersect_wedge
 
 
 def _unit_wedge():
@@ -88,7 +88,7 @@ def test_wedge_sampler_on_synthetic():
 
     # points at layer mid-heights of column centroids must hit and return
     # the layer's bv scalar
-    from icon_rt_tpu.utils.vecmath import np_to_cartesian
+    from icon_dvr.utils.vecmath import np_to_cartesian
     n = ds.num_cells
     hits = 0
     checked = 0

@@ -1,10 +1,10 @@
 import jax.numpy as jnp
 import numpy as np
 
-from icon_rt_tpu.utils import color as colorlib
-from icon_rt_tpu.utils.vecmath import (box_test, eval_plane, make_plane, lerp,
-                                       to_cartesian, to_spherical,
-                                       np_to_cartesian, np_to_spherical, sph)
+from icon_dvr.utils import color as colorlib
+from icon_dvr.utils.vecmath import (box_test, eval_plane, make_plane, lerp,
+                                    to_cartesian, to_spherical,
+                                    np_to_cartesian, np_to_spherical, sph)
 
 
 def test_spherical_roundtrip():
@@ -81,8 +81,8 @@ def test_make_rgba():
 
 
 def test_mat3_inverse_determinant():
-    from icon_rt_tpu.utils.vecmath import (mat3_determinant, mat3_inverse,
-                                           mat_mul, mat_vec)
+    from icon_dvr.utils.vecmath import (mat3_determinant, mat3_inverse,
+                                        mat_mul, mat_vec)
     rng = np.random.default_rng(7)
     m = jnp.asarray(rng.normal(size=(5, 3, 3)).astype(np.float32))
     det = np.asarray(mat3_determinant(m))
@@ -102,8 +102,8 @@ def test_mat4_frustum_ortho():
     """Entries match the reference formulas (ref: vecmath.h:858-905) and
     the projections behave: frustum maps the near plane to z=-1, ortho
     maps the box corners to the unit cube."""
-    from icon_rt_tpu.utils.vecmath import (make_frustum, make_ortho,
-                                           mat_identity, mat_mul, mat_vec)
+    from icon_dvr.utils.vecmath import (make_frustum, make_ortho,
+                                        mat_identity, mat_mul, mat_vec)
     l, r, b, t, n, f = -0.2, 0.3, -0.1, 0.25, 0.5, 100.0
     M = np.asarray(make_frustum(l, r, b, t, n, f))
     p = np.asarray(mat_vec(jnp.asarray(M), jnp.asarray([l, b, -n, 1.0])))
@@ -125,10 +125,10 @@ def test_mat4_frustum_ortho():
 
 
 def test_interval_arithmetic():
-    from icon_rt_tpu.utils.vecmath import (interval, interval_add,
-                                           interval_contains, interval_div,
-                                           interval_length, interval_mul,
-                                           interval_sub)
+    from icon_dvr.utils.vecmath import (interval, interval_add,
+                                        interval_contains, interval_div,
+                                        interval_length, interval_mul,
+                                        interval_sub)
     a = interval(jnp.asarray([-1.0, 2.0]), jnp.asarray([3.0, 5.0]))
     b = interval(jnp.asarray([2.0, -4.0]), jnp.asarray([4.0, -1.0]))
     lo, hi = interval_add(a, b)

@@ -19,7 +19,7 @@ import viewer  # noqa: E402
 
 @pytest.fixture(scope="module")
 def live():
-    # --samples 2: the fast raygen batches samples per launch (round 4);
+    # --samples 2: the fast raygen batches samples per launch;
     # a 6-sample limit then spans three PRESENTED frames, which the
     # progressive-advance test needs (at the default batch of 8 the whole
     # accumulation would land in one frame)
@@ -61,7 +61,7 @@ def _post(url, obj):
 def test_page_and_first_frame(live):
     st, base = live
     status, _, body = _get(base + "/")
-    assert status == 200 and b"icon_rt_tpu viewer" in body
+    assert status == 200 and b"icon_dvr viewer" in body
     status, heads, png = _get(base + "/frame.png?since=-1")
     assert status == 200
     assert png[:8] == b"\x89PNG\r\n\x1a\n"
